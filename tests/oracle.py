@@ -2,20 +2,20 @@
 
 This module re-implements the reference pipeline (kfjahnke/envutil)
 directly from the reference sources in deliberately naive numpy
-float64, WITHOUT importing anything from envutil_tpu. It exists to
-make the >= 50 dB PSNR north star falsifiable: envutil_tpu and this
+float64, WITHOUT importing anything from envutil. It exists to
+make the >= 50 dB PSNR north star falsifiable: envutil and this
 oracle share no code paths, so a systematic error (e.g. a half-pixel
 convention slip) in either one shows up as a PSNR drop.
 
 Every function cites the reference formula it implements. Design
-choices that differ from envutil_tpu on purpose:
+choices that differ from envutil on purpose:
   * prefilter = direct dense solve of the b-spline collocation system
     (the interpolating spline per BC is unique, so this matches the
     reference's recursive IIR filter exactly in exact arithmetic;
-    envutil_tpu uses a truncated FIR inverse instead)
+    envutil uses a truncated FIR inverse instead)
   * evaluation = per-pixel gather with python-built index maps
-    (envutil_tpu uses fused kernels / XLA)
-  * rotations from explicit axis matrices (envutil_tpu builds them
+    (envutil uses fused kernels / XLA)
+  * rotations from explicit axis matrices (envutil builds them
     from a closed-form Euler expression)
 
 Scope: the five BASELINE.json configs (mount sources incl. full
@@ -277,14 +277,38 @@ def _bc_index(idx, n, bc):
     raise ValueError(bc)
 
 
+def prefilter_periodic_fft(data, degree):
+    """prefilter_1d for the periodic boundary condition. The
+    collocation matrix is then circulant, so the same unique solution
+    comes from one division in Fourier space: O(n log n) where the
+    dense solve is O(n^3), which makes full 8K and 16K sources
+    checkable."""
+    n = data.shape[0]
+    half = degree // 2
+    taps = np.arange(-half, half + 1)
+    w = bspline_val(degree, taps.astype(np.float64))
+    k = np.arange(n // 2 + 1)
+    # the circulant's eigenvalues: sum_t w_t exp(2 pi i k t / n), real
+    # because the B-spline taps are symmetric
+    lam = sum(wt * np.cos(2.0 * math.pi * k * t / n)
+              for t, wt in zip(taps, w))
+    flat = np.asarray(data, np.float64).reshape(n, -1)
+    out = np.fft.irfft(np.fft.rfft(flat, axis=0) / lam[:, None], n,
+                       axis=0)
+    return out.reshape(data.shape)
+
+
 def prefilter_1d(data, degree, bc):
     """Solve the collocation system sum_k c_k B(i - k) = data_i along
     axis 0 with the BC-implied coefficient extension. The solution is
     the unique interpolating spline, matching the reference's
-    recursive prefilter (zimt/prefilter.h:133) exactly."""
+    recursive prefilter (zimt/prefilter.h:133) exactly. Long periodic
+    signals are solved in Fourier space (prefilter_periodic_fft)."""
     if degree < 2:
         return np.array(data, np.float64)
     n = data.shape[0]
+    if bc == "periodic" and n > 2048:
+        return prefilter_periodic_fft(data, degree)
     half = degree // 2
     taps = np.arange(-half, half + 1)
     w = bspline_val(degree, taps.astype(np.float64))
@@ -824,11 +848,13 @@ def auto_twine(mag, spline_degree, nfacets, twine_max=8):
 # ------------------------------------------------------------- renderer
 
 def render(target, facets, synopsis="panorama", spread=None,
-           twine_precise=False):
+           twine_precise=False, pixels=None):
     """Full oracle pipeline. ``target`` is a dict with projection,
     width, height, hfov, yaw, pitch, roll; ``facets`` a list of
     MountFacet/CubemapFacet; ``spread`` a list of (x, y, w) twining
-    coefficients or None.
+    coefficients or None; ``pixels`` an optional (rows, cols) pair of
+    index arrays: only those target pixels are rendered, and the result
+    is (N, C) instead of (H, W, C).
 
     Mirrors fuse() (envutil_payload.cc:1885-2290): per facet,
     facet_ray = R_facet^-1 @ R_camera @ target_ray; twining via
@@ -843,6 +869,8 @@ def render(target, facets, synopsis="panorama", spread=None,
 
     def facet_rays(bias_x=0.0, bias_y=0.0):
         rays = target_rays(prj, w, h, hfov, bias_x, bias_y)
+        if pixels is not None:
+            rays = rays[pixels]
         out = []
         for fct in facets:
             m = fct.rot_inv @ r_cam

@@ -5,8 +5,8 @@ the imgio hook routes non-sRGB pairs through the built-ins."""
 import numpy as np
 import pytest
 
-from envutil_tpu.io import colour as C
-from envutil_tpu.io import imgio
+from envutil.io import colour as C
+from envutil.io import imgio
 
 RNG = np.random.default_rng(11)
 
@@ -84,7 +84,7 @@ def test_ocio_subset_config(tmp_path, monkeypatch):
 
     import numpy as np
 
-    from envutil_tpu.io import imgio, ocio
+    from envutil.io import imgio, ocio
 
     cfg = tmp_path / "test.ocio"
     cfg.write_text(textwrap.dedent("""\
@@ -156,7 +156,7 @@ def test_ocio_file_transform_luts(tmp_path, monkeypatch):
 
     import numpy as np
 
-    from envutil_tpu.io import imgio, ocio
+    from envutil.io import imgio, ocio
 
     luts = tmp_path / "luts"
     luts.mkdir()
@@ -224,7 +224,7 @@ def test_ocio_log_and_cdl_sat(tmp_path, monkeypatch):
 
     import numpy as np
 
-    from envutil_tpu.io import imgio, ocio
+    from envutil.io import imgio, ocio
 
     # ARRI LogC3 EI800 as an OCIO v2 LogCameraTransform (the standard
     # published parameterization)
@@ -340,7 +340,7 @@ def test_ocio_builtin_transform_styles(tmp_path, monkeypatch):
     and the CIE-XYZ-D65 display hub."""
     import textwrap
 
-    from envutil_tpu.io import imgio, ocio
+    from envutil.io import imgio, ocio
 
     cfg = tmp_path / "aceslike.ocio"
     cfg.write_text(textwrap.dedent("""\
@@ -426,7 +426,7 @@ def test_ocio_grading_transforms(tmp_path, monkeypatch):
     inverses."""
     import textwrap
 
-    from envutil_tpu.io import imgio, ocio
+    from envutil.io import imgio, ocio
 
     cfg = tmp_path / "grade.ocio"
     cfg.write_text(textwrap.dedent("""\
@@ -492,7 +492,7 @@ def test_ocio_inverse_lut3d(tmp_path, monkeypatch):
     the input of a smooth invertible LUT to ~1e-3."""
     import textwrap
 
-    from envutil_tpu.io import imgio, ocio
+    from envutil.io import imgio, ocio
 
     m = 17
     g = np.linspace(0, 1, m)
@@ -531,7 +531,7 @@ def test_aces_output_transform(tmp_path, monkeypatch):
     style composes with the display encode in a config."""
     import textwrap
 
-    from envutil_tpu.io import aces, imgio, ocio
+    from envutil.io import aces, imgio, ocio
 
     # tonescale anchors (Tonescales.ctl knot points)
     np.testing.assert_allclose(aces.rrc_tonescale(0.18), 4.8,
@@ -585,7 +585,7 @@ def test_aces_output_transform(tmp_path, monkeypatch):
 def test_ocio_pq_hlg_display_styles():
     """HDR display encodes: ST 2084 (PQ) and BT.2100 HLG hit the
     published anchor points and round-trip through the display hub."""
-    from envutil_tpu.io import ocio
+    from envutil.io import ocio
 
     # PQ: 100 nits (display-linear 1.0) encodes to ~0.5081; peak is 1
     np.testing.assert_allclose(float(ocio._pq_encode(1.0)), 0.5080784,
@@ -618,7 +618,7 @@ def test_aces_hdr_output_transforms(tmp_path, monkeypatch):
     the OCIO builtin-style integration (HDR-VIDEO PQ view)."""
     import textwrap
 
-    from envutil_tpu.io import aces, imgio, ocio
+    from envutil.io import aces, imgio, ocio
 
     # SSTS anchors: the curve must hit its min/max luminances exactly
     # and map scene 0.18 to the requested mid luminance (expShift)

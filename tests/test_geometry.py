@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from envutil_tpu.core import geometry as geo
-from envutil_tpu.core.conventions import Projection
+from envutil.core import geometry as geo
+from envutil.core.conventions import Projection
 
 RNG = np.random.default_rng(42)
 

@@ -4,7 +4,7 @@ BASELINE.json's north star demands >= 50 dB PSNR vs the reference's
 output. The reference binary cannot be built in this image (no
 OpenImageIO), so tests/oracle.py re-implements the reference pipeline
 from the reference sources in naive numpy float64, sharing no code with
-envutil_tpu. These tests render small versions of all five BASELINE
+envutil. These tests render small versions of all five BASELINE
 configs through BOTH pipelines and assert agreement far above the
 50 dB bar — a systematic error on either side (e.g. a half-pixel
 convention slip) would show up as a PSNR collapse.
@@ -24,13 +24,13 @@ import pytest
 
 import oracle as O
 
-from envutil_tpu.core.conventions import Projection
-from envutil_tpu.core.facet import Facet
-from envutil_tpu.core.metrics import get_extent, get_step
-from envutil_tpu.models import cubemap as CBM
-from envutil_tpu.models import environment as E
-from envutil_tpu.runtime.args import Args
-from envutil_tpu.runtime.render import build_plan, render_frame
+from envutil.core.conventions import Projection
+from envutil.core.facet import Facet
+from envutil.core.metrics import get_extent, get_step
+from envutil.models import cubemap as CBM
+from envutil.models import environment as E
+from envutil.runtime.args import Args
+from envutil.runtime.render import build_plan, render_frame
 
 GOLDEN_DB = 50.0
 

@@ -15,9 +15,9 @@ import types
 import numpy as np
 import pytest
 
-from envutil_tpu.io import imgio
-from envutil_tpu.runtime import assets
-from envutil_tpu.runtime.cli import core
+from envutil.io import imgio
+from envutil.runtime import assets
+from envutil.runtime.cli import core
 
 
 @pytest.fixture(autouse=True)
@@ -51,7 +51,7 @@ def test_cubeface_series_roundtrip(tmp_path):
     """Writing a cubemap with '%s' in the path produces six face files;
     reading them back through an '%s' input renders identically to the
     1:6 stripe (the two load paths build the same IR spline)."""
-    from envutil_tpu.core.conventions import FACE_NAMES
+    from envutil.core.conventions import FACE_NAMES
 
     env = synthetic_equirect()
     imgio.save_image(str(tmp_path / "env.exr"), env,
@@ -76,8 +76,8 @@ def test_cubeface_series_roundtrip(tmp_path):
         np.testing.assert_array_equal(farr, stripe[i * 64:(i + 1) * 64])
 
     # metadata probe: a %s input is a cubemap facet (full 1:6 stripe)
-    from envutil_tpu.core.conventions import Projection
-    from envutil_tpu.runtime.args import parse_args
+    from envutil.core.conventions import Projection
+    from envutil.runtime.args import parse_args
     args = parse_args(["--input", str(tmp_path / "cm_%s.exr"),
                        "--output", str(tmp_path / "x.exr"),
                        "--projection", "spherical",

@@ -10,7 +10,7 @@ import math
 
 import numpy as np
 
-from envutil_tpu.models.environment import _fill_polygon_mask
+from envutil.models.environment import _fill_polygon_mask
 
 
 def test_polygon_fill_convex_box():

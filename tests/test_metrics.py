@@ -5,8 +5,8 @@ import math
 
 import numpy as np
 
-from envutil_tpu.core.conventions import Projection
-from envutil_tpu.core.metrics import CubemapMetrics, get_extent, get_step, get_vfov
+from envutil.core.conventions import Projection
+from envutil.core.metrics import CubemapMetrics, get_extent, get_step, get_vfov
 
 
 def test_spherical_extent_full():

@@ -8,9 +8,9 @@ import textwrap
 import numpy as np
 import pytest
 
-from envutil_tpu.io import imgio
-from envutil_tpu.runtime import assets
-from envutil_tpu.runtime.cli import core
+from envutil.io import imgio
+from envutil.runtime import assets
+from envutil.runtime.cli import core
 
 
 @pytest.fixture(autouse=True)
@@ -212,9 +212,7 @@ def test_coeff_cache_resume(tmp_path):
 
 
 def test_coeff_bf16_render(tmp_path):
-    """--coeff bf16 renders within bf16 rounding of the f32 result
-    (XLA path on CPU; the kernel path is covered by the bf16
-    interpreter test and the TPU check tool)."""
+    """--coeff bf16 renders within bf16 rounding of the f32 result."""
     env = synthetic_equirect(256, 128)
     imgio.save_image(str(tmp_path / "env.exr"), env,
                      projection_name="spherical", hfov_deg=360)
@@ -240,10 +238,10 @@ def test_coeff_cache_bf16_roundtrip(tmp_path):
     import jax.numpy as jnp
     import ml_dtypes
 
-    from envutil_tpu.core.conventions import Projection
-    from envutil_tpu.core.facet import Facet
-    from envutil_tpu.ops import spline as S
-    from envutil_tpu.runtime import coeff_cache
+    from envutil.core.conventions import Projection
+    from envutil.core.facet import Facet
+    from envutil.ops import spline as S
+    from envutil.runtime import coeff_cache
 
     env = synthetic_equirect(64, 32)
     imgio.save_image(str(tmp_path / "env.exr"), env,
@@ -261,17 +259,13 @@ def test_coeff_cache_bf16_roundtrip(tmp_path):
     spl = S.Spline2D(coeff=spl.coeff.astype(ml_dtypes.bfloat16),
                      pad=spl.pad, degree=spl.degree, bcs=spl.bcs,
                      core_shape=spl.core_shape, spherical=spl.spherical)
-    coeff_cache.store(_A, fct, key="k", spl=spl,
-                      variants={"alt": spl})
-    got = coeff_cache.load(_A, fct, key="k")
-    assert got is not None, "bf16 cache entry treated as a miss"
-    rspl, rvar = got
+    coeff_cache.store(_A, fct, key="k", spl=spl)
+    rspl = coeff_cache.load(_A, fct, key="k")
+    assert rspl is not None, "bf16 cache entry treated as a miss"
     assert rspl.coeff.dtype == jnp.bfloat16
     np.testing.assert_array_equal(
         np.asarray(rspl.coeff).view(np.uint16),
         np.asarray(spl.coeff).view(np.uint16))
-    assert set(rvar) == {"alt"}
-    assert rvar["alt"].coeff.dtype == jnp.bfloat16
 
 
 def test_twine_pyramid_minified_downscale(tmp_path):
@@ -297,10 +291,10 @@ def test_twine_pyramid_minified_downscale(tmp_path):
 def test_twine_pyramid_selection_and_guards():
     """Level selection puts the residual magnification in [0.5, 1);
     facets with planar transforms keep full resolution."""
-    from envutil_tpu.core.conventions import Projection
-    from envutil_tpu.core.facet import Facet
-    from envutil_tpu.core.metrics import get_extent, get_step
-    from envutil_tpu.runtime.args import Args
+    from envutil.core.conventions import Projection
+    from envutil.core.facet import Facet
+    from envutil.core.metrics import get_extent, get_step
+    from envutil.runtime.args import Args
 
     def mk(w, h, a=0.0):
         f = Facet(facet_no=0, nchannels=3)
@@ -342,8 +336,8 @@ def test_ctc_fov_conversion(tmp_path):
     """--ctc converts a center-to-center cubemap facet's fov to
     edge-to-edge semantics: fov' = 2*atan(tan(fov/2)*(w+1)/w)
     (reference README.md:845-869)."""
-    from envutil_tpu.core.conventions import Projection
-    from envutil_tpu.runtime.args import parse_args
+    from envutil.core.conventions import Projection
+    from envutil.runtime.args import parse_args
 
     img = np.random.default_rng(3).uniform(
         0, 1, (96, 16, 3)).astype(np.float32)
@@ -370,8 +364,8 @@ def test_input_aspect_inference(tmp_path):
     --photo keeps the reference's metadata-else-rectilinear-65
     behavior (envutil_basic.h:607-625)."""
     import imageio.v3 as iio
-    from envutil_tpu.core.conventions import Projection
-    from envutil_tpu.runtime.args import parse_args
+    from envutil.core.conventions import Projection
+    from envutil.runtime.args import parse_args
 
     rng = np.random.default_rng(5)
     iio.imwrite(str(tmp_path / "eq.tiff"),

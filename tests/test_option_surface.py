@@ -19,10 +19,10 @@ import math
 import numpy as np
 import pytest
 
-from envutil_tpu.io import imgio
-from envutil_tpu.runtime import assets
-from envutil_tpu.runtime.args import make_parser
-from envutil_tpu.runtime.cli import core
+from envutil.io import imgio
+from envutil.runtime import assets
+from envutil.runtime.args import make_parser
+from envutil.runtime.cli import core
 
 
 @pytest.fixture(autouse=True)
@@ -111,9 +111,9 @@ EXEMPT = {
     "--twine_max": "caps AUTO twine only: test_twining auto_twine "
                    "cases",
     "--twine_pyramid": "load-time decimation for minifying facets: "
-                       "test_fastpath_interpret/test_render",
-    "--precise": "disables fast-lane variant shortcuts; output "
-                 "checked equal-or-better by design: test_planner",
+                       "test_modes.test_twine_pyramid_minified_downscale",
+    "--precise": "accepted so existing command lines still parse; has "
+                 "no effect, since every render is exact",
     "--coeff_cache": "on-disk coefficient cache: test_tiles "
                      "round-trips it; value-neutral by contract",
     "--mesh": "device-mesh sharding, bit-equal by contract: "

@@ -6,14 +6,14 @@ import jax
 import numpy as np
 import pytest
 
-from envutil_tpu.core.conventions import Projection
-from envutil_tpu.core.facet import Facet
-from envutil_tpu.core.metrics import get_extent, get_step
-from envutil_tpu.models import environment as E
-from envutil_tpu.parallel.mesh import (make_mesh, replicate_sources,
-                                       sharded_render)
-from envutil_tpu.runtime.args import Args
-from envutil_tpu.runtime.render import build_plan, render_frame
+from envutil.core.conventions import Projection
+from envutil.core.facet import Facet
+from envutil.core.metrics import get_extent, get_step
+from envutil.models import environment as E
+from envutil.parallel.mesh import (make_mesh, replicate_sources,
+                                   sharded_render)
+from envutil.runtime.args import Args
+from envutil.runtime.render import build_plan, render_frame
 
 RNG = np.random.default_rng(9)
 
@@ -26,8 +26,7 @@ def _make(projection, w, h, hfov):
     return f
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_sharded_render_matches_single_device():
+def test_sharded_render_matches_single_device(devices8):
     img = RNG.uniform(0, 1, (64, 128, 3)).astype(np.float32)
     fct = _make(Projection.SPHERICAL, 128, 64, 2 * math.pi)
     src = E.make_mount_source(fct, img, 1, 1)
@@ -49,7 +48,7 @@ def test_sharded_render_matches_single_device():
 
     single = render_frame(plan, [src])
 
-    mesh = make_mesh(jax.devices()[:8])
+    mesh = make_mesh(devices8)
     srcs = replicate_sources([src], mesh)
     fn = sharded_render(plan, srcs, mesh)
     out = jax.block_until_ready(fn(srcs))
@@ -57,8 +56,7 @@ def test_sharded_render_matches_single_device():
     np.testing.assert_allclose(np.asarray(out), single, atol=1e-6)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_render_frame_mesh_option():
+def test_render_frame_mesh_option(devices8):
     """render_frame(mesh_n=N) - the --mesh CLI path - matches the
     single-device frame and falls back cleanly when it can't shard."""
     img = RNG.uniform(0, 1, (64, 128, 3)).astype(np.float32)
@@ -89,15 +87,26 @@ def test_render_frame_mesh_option():
     np.testing.assert_allclose(fallback, single, atol=1e-6)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
+def test_render_frame_mesh_too_few_devices():
+    """--mesh N with fewer than N devices is an error, not a silent
+    single-device render."""
+    img = RNG.uniform(0, 1, (32, 64, 3)).astype(np.float32)
+    fct = _make(Projection.SPHERICAL, 64, 32, 2 * math.pi)
+    src = E.make_mount_source(fct, img, 1, 1)
+    plan = _plan_for([fct], wh=(16, 16), degree=1)
+    n = len(jax.devices()) + 1
+    with pytest.raises(ValueError, match=f"--mesh {n}: only"):
+        render_frame(plan, [src], mesh_n=n)
+
+
 @pytest.mark.parametrize("degree", [1, 3])
-def test_ring_spline_eval_exact(degree):
+def test_ring_spline_eval_exact(devices8, degree):
     """Facet-sharded evaluation: coefficient row bands ring-rotated
     over the mesh (ppermute) reproduce eval_spline exactly."""
     import jax.numpy as jnp
-    from envutil_tpu.ops import spline as S
-    from envutil_tpu.parallel.mesh import (ring_spline_eval,
-                                           shard_spline_rows)
+    from envutil.ops import spline as S
+    from envutil.parallel.mesh import (ring_spline_eval,
+                                       shard_spline_rows)
 
     img = jnp.asarray(RNG.uniform(0, 1, (94, 130, 3)), np.float32)
     spl = S.make_spline(img, degree, bcs=(S.MIRROR, S.PERIODIC))
@@ -111,7 +120,7 @@ def test_ring_spline_eval_exact(degree):
                     .astype(np.float32))
     ref = S.eval_spline(spl, x, y)
 
-    mesh = make_mesh(jax.devices()[:8])
+    mesh = make_mesh(devices8)
     sharded = shard_spline_rows(spl, mesh)
     out = ring_spline_eval(sharded, x, y, mesh)
     assert len(out.sharding.device_set) == 8
@@ -141,14 +150,13 @@ def _plan_for(fcts, projection=Projection.RECTILINEAR, wh=(64, 64),
     return build_plan(args, fcts)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_ring_sharded_render_solo_bit_equal():
+def test_ring_sharded_render_solo_bit_equal(devices8):
     """--shard_table end-to-end: a job rendering from a row-band-
     sharded coefficient table equals the replicated render to within
     FMA-contraction ulps (tiles.h:354-1337 wired as get_t/put_t)."""
-    from envutil_tpu.parallel.mesh import (ring_sharded_render,
-                                           shard_sources)
-    from envutil_tpu.runtime.render import _render_window
+    from envutil.parallel.mesh import (ring_sharded_render,
+                                       shard_sources)
+    from envutil.runtime.render import _render_window
 
     img = RNG.uniform(0, 1, (96, 192, 3)).astype(np.float32)
     fct = _make(Projection.SPHERICAL, 192, 96, 2 * math.pi)
@@ -161,7 +169,7 @@ def test_ring_sharded_render_solo_bit_equal():
     ref = np.asarray(jax.jit(
         lambda s: _render_window(plan, s, None))([src]), np.float32)
 
-    mesh = make_mesh(jax.devices()[:8])
+    mesh = make_mesh(devices8)
     srcs = shard_sources([src], mesh)
     assert len(srcs[0].spl.coeff.sharding.device_set) == 8
     out = jax.block_until_ready(ring_sharded_render(plan, srcs,
@@ -171,13 +179,12 @@ def test_ring_sharded_render_solo_bit_equal():
                                rtol=4e-7, atol=4e-7)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_ring_sharded_render_multi_facet():
+def test_ring_sharded_render_multi_facet(devices8):
     """Voronoi stitch from two ring-sharded facets matches the
     replicated synopsis (same arithmetic; <= 2 ulp FMA residual)."""
-    from envutil_tpu.parallel.mesh import (ring_sharded_render,
-                                           shard_sources)
-    from envutil_tpu.runtime.render import _render_window
+    from envutil.parallel.mesh import (ring_sharded_render,
+                                       shard_sources)
+    from envutil.runtime.render import _render_window
 
     fcts, srcs0 = [], []
     for i, yaw in enumerate((-15.0, 15.0)):
@@ -196,7 +203,7 @@ def test_ring_sharded_render_multi_facet():
     ref = np.asarray(jax.jit(
         lambda s: _render_window(plan, s, None))(srcs0), np.float32)
 
-    mesh = make_mesh(jax.devices()[:8])
+    mesh = make_mesh(devices8)
     srcs = shard_sources(srcs0, mesh)
     out = jax.block_until_ready(ring_sharded_render(plan, srcs,
                                                     mesh)(srcs))
@@ -204,121 +211,7 @@ def test_ring_sharded_render_multi_facet():
                                rtol=4e-7, atol=4e-7)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_render_fast_mesh_bit_equal_single_device(monkeypatch):
-    """--mesh through the FUSED kernel (interpreter mode): the pass
-    structure is planned once globally and dispatched per output-row
-    band on its own device, so the composite must be bit-equal to the
-    single-device fused render (same kernels on the same tiles).
-    Degree 1 + the TIGHT ladder keep the interpreter compiles ~25s."""
-    from envutil_tpu.ops import pallas_resample as PR
-    from envutil_tpu.runtime import fastpath
-
-    monkeypatch.setattr(PR, "FORCE_INTERPRET", True)
-
-    img = RNG.uniform(0, 1, (128, 256, 3)).astype(np.float32)
-    fct = _make(Projection.SPHERICAL, 256, 128, 2 * math.pi)
-    src = E.make_mount_source(fct, img, 1, 1)
-    plan = _plan_for([fct], wh=(128, 256), hfov_deg=90.0,
-                     yaw_deg=10.0, degree=1)
-
-    single = fastpath.render_fast(plan, [src], classes=(PR.TIGHT,))
-    assert single is not None
-    meshed = fastpath.render_fast_mesh(plan, [src], 2, verbose=True,
-                                       classes=(PR.TIGHT,))
-    assert meshed is not None
-    np.testing.assert_array_equal(meshed, single)
-
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_render_fast_mesh_multivariant_fallback_bands(monkeypatch):
-    """Banded dispatch of a MULTI-PASS, MULTI-VARIANT plan: the view
-    crosses the lon seam (rolled variant engages) and reaches the pole
-    (two tiles fall back to the XLA patch path), so one band carries
-    only fallback tiles and the other two kernel passes on different
-    source variants. The banded composite must be bit-equal to the
-    single-device fused render (VERDICT r3 item 4c)."""
-    from envutil_tpu.ops import pallas_resample as PR
-    from envutil_tpu.ops import spline as S
-    from envutil_tpu.runtime import fastpath
-
-    monkeypatch.setattr(PR, "FORCE_INTERPRET", True)
-
-    img = RNG.uniform(0, 1, (256, 512, 3)).astype(np.float32)
-    fct = _make(Projection.SPHERICAL, 512, 256, 2 * math.pi)
-    src = E.make_mount_source(fct, img, 1, 1)
-    # the loader only attaches variants on TPU; build 'rolled' here
-    src.variants["rolled"] = S.rolled_spline(src.spl)
-
-    args = Args()
-    args.projection = Projection.RECTILINEAR
-    args.width = args.height = 256
-    args.hfov = math.radians(80)
-    args.extent = get_extent(args.projection, 256, 256, args.hfov)
-    args.step = (args.extent.x1 - args.extent.x0) / 256
-    args.yaw = math.radians(175)    # lon wrap inside a tile
-    args.pitch = math.radians(55)   # pole inside the upper band
-    args.spline_degree = args.prefilter_degree = 1
-    args.twine = 0
-    args.synopsis = "panorama"
-    args.nchannels = 3
-    args.facets = [fct]
-    args.solo = 0
-    plan = build_plan(args, [fct])
-
-    passes, assigned = fastpath.plan_passes(
-        plan, src, (0, 256, 0, 256), fastpath.DEFAULT_CLASSES)
-    names = {n for (n, _w, _b, _t, _m) in passes}
-    assert "rolled" in names and "orig" in names, names
-    assert (assigned == -1).any(), "no fallback tiles - config drifted"
-
-    single = fastpath.render_fast(plan, [src], verbose=True)
-    assert single is not None
-    meshed = fastpath.render_fast_mesh(plan, [src], 2, verbose=True)
-    assert meshed is not None
-    # same plans, same kernels on the same tiles; the only residual is
-    # XLA's per-program FMA-contraction choice between the band-sized
-    # and full-frame programs (<= 2 ulp, same standard as the
-    # ring/shard_table checks)
-    np.testing.assert_allclose(meshed, single, rtol=4e-7, atol=4e-7)
-
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_render_fast_mesh_multi_facet_bit_equal(monkeypatch):
-    """--mesh for a MULTI-FACET stitch: per-facet plans banded, each
-    band a one-jit combined frame (facet passes + masked-merge edge
-    tiles + synopsis) on its own device - bit-equal to the
-    single-device one-jit multi frame (VERDICT r3 item 2)."""
-    from envutil_tpu.ops import pallas_resample as PR
-    from envutil_tpu.runtime import fastpath
-
-    monkeypatch.setattr(PR, "FORCE_INTERPRET", True)
-
-    fcts, srcs = [], []
-    for i, yaw in enumerate((-12.0, 12.0)):
-        img = RNG.uniform(0, 1, (192, 256, 3)).astype(np.float32)
-        f = Facet(facet_no=i, nchannels=3)
-        f.set_geometry(Projection.RECTILINEAR, 256, 192,
-                       math.radians(70))
-        f.step = get_step(Projection.RECTILINEAR, 256, 192,
-                          math.radians(70))
-        f.yaw = math.radians(yaw)
-        f.process_geometry()
-        fcts.append(f)
-        srcs.append(E.make_mount_source(f, img, 1, 1))
-    plan = _plan_for(fcts, wh=(256, 256), hfov_deg=60.0, yaw_deg=0.0,
-                     degree=1)
-
-    single = fastpath.render_fast(plan, srcs, verbose=True)
-    assert single is not None, "multi fused path declined"
-    meshed = fastpath.render_fast_mesh(plan, srcs, 2, verbose=True)
-    assert meshed is not None, "multi mesh path declined"
-    # <= 2 ulp FMA-contraction residual between program shapes
-    np.testing.assert_allclose(meshed, single, rtol=4e-7, atol=4e-7)
-
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_render_frame_shard_table_option():
+def test_render_frame_shard_table_option(devices8):
     """render_frame(mesh_n=8, shard_table=True) - the --shard_table
     CLI path - matches the single-device frame (<= 2 ulp)."""
     img = RNG.uniform(0, 1, (64, 128, 3)).astype(np.float32)

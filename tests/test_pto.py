@@ -6,8 +6,8 @@ import textwrap
 
 import pytest
 
-from envutil_tpu.core.conventions import Projection
-from envutil_tpu.io import pto
+from envutil.core.conventions import Projection
+from envutil.io import pto
 
 PTO_SAMPLE = textwrap.dedent("""\
     # hugin project file
@@ -82,14 +82,14 @@ def test_addenda():
 def _write_fixture_image(path, w=64, h=48):
     import numpy as np
 
-    from envutil_tpu.io import imgio
+    from envutil.io import imgio
     img = np.zeros((h, w, 3), dtype=np.float32)
     img[..., 0] = 0.5
     imgio.save_image(str(path), img)
 
 
 def test_args_from_pto(tmp_path):
-    from envutil_tpu.runtime.args import parse_args
+    from envutil.runtime.args import parse_args
     _write_fixture_image(tmp_path / "img0.exr")
     _write_fixture_image(tmp_path / "img1.exr")
     ptof = tmp_path / "j.pto"
@@ -118,7 +118,7 @@ def test_args_from_pto(tmp_path):
 
 
 def test_args_facet_cli(tmp_path):
-    from envutil_tpu.runtime.args import parse_args
+    from envutil.runtime.args import parse_args
     _write_fixture_image(tmp_path / "env.exr")
     args = parse_args(["--facet", str(tmp_path / "env.exr"), "spherical",
                        "360", "15", "0", "0",
@@ -133,7 +133,7 @@ def test_args_facet_cli(tmp_path):
 
 
 def test_twine_setup_auto(tmp_path):
-    from envutil_tpu.runtime.args import parse_args
+    from envutil.runtime.args import parse_args
     _write_fixture_image(tmp_path / "env.exr", w=512, h=256)
     # downscale: 512-wide 360deg source to 64-wide 90deg rectilinear
     args = parse_args(["--facet", str(tmp_path / "env.exr"), "spherical",
@@ -147,7 +147,7 @@ def test_twine_setup_auto(tmp_path):
 
 
 def test_twf_file(tmp_path):
-    from envutil_tpu.models.twining import read_twf_file
+    from envutil.models.twining import read_twf_file
     f = tmp_path / "k.twf"
     f.write_text("0 0 2\n1 0 1\n0 1 1\n")
     taps = read_twf_file(str(f), twine_width=2.0, normalize=True)

@@ -6,7 +6,7 @@ are transcribed directly from the reference C++ (stepper.h:296-337
 doubled-int edge-to-edge placement, geometry.h planar<->ray functors,
 envutil_basic.h:56-64 face order) WITHOUT looking at either pipeline.
 
-Both the product (envutil_tpu.core.geometry / models.stepper) and the
+Both the product (envutil.core.geometry / models.stepper) and the
 independent oracle (tests/oracle.py) must match the frozen literals -
 a convention misread shared by product and oracle (the golden tier's
 blind spot) fails here against the third transcription.
@@ -20,8 +20,8 @@ import pytest
 
 import oracle as O
 
-from envutil_tpu.core import geometry as G
-from envutil_tpu.models import stepper as ST
+from envutil.core import geometry as G
+from envutil.models import stepper as ST
 
 TRUTH = json.load(open(os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "data",

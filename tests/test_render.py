@@ -13,15 +13,15 @@ import math
 import numpy as np
 import pytest
 
-from envutil_tpu.core.conventions import Projection
-from envutil_tpu.core.facet import Facet
-from envutil_tpu.core.metrics import get_extent, get_step
-from envutil_tpu.models import environment as E
-from envutil_tpu.models import cubemap as CBM
-from envutil_tpu.models import synopsis as SYN
-from envutil_tpu.models import stepper as ST
-from envutil_tpu.runtime.render import RenderPlan, build_plan, render_frame
-from envutil_tpu.runtime.args import Args
+from envutil.core.conventions import Projection
+from envutil.core.facet import Facet
+from envutil.core.metrics import get_extent, get_step
+from envutil.models import environment as E
+from envutil.models import cubemap as CBM
+from envutil.models import synopsis as SYN
+from envutil.models import stepper as ST
+from envutil.runtime.render import RenderPlan, build_plan, render_frame
+from envutil.runtime.args import Args
 
 RNG = np.random.default_rng(3)
 
@@ -208,99 +208,3 @@ def test_alpha_compositing_voronoi_plus():
     plan = build_plan(args, [f0, f1])
     out = render_frame(plan, [s0, s1])
     np.testing.assert_allclose(out[8, 8], [0.5, 0.5, 0.0, 1.0], atol=1e-5)
-
-
-def test_stitch_classification_covers_most_tiles():
-    """The class ladder (sheared + STEEP) must classify all but the
-    extreme facet-corner tiles of a multi-facet pano stitch (those
-    few go through the batched XLA patch scan - their local
-    minification is unbounded, so no static budget can hold them)."""
-    import math
-    from envutil_tpu.ops import pallas_resample as PR
-    from envutil_tpu.runtime import fastpath as FP
-
-    f_imgs = [RNG.uniform(0, 1, (768, 1024, 3)).astype(np.float32)
-              for _ in range(3)]
-    facets, srcs = [], []
-    for i, yaw in enumerate((-40.0, 0.0, 40.0)):
-        f = Facet(facet_no=i, nchannels=3)
-        f.set_geometry(Projection.RECTILINEAR, 1024, 768,
-                       math.radians(65))
-        f.step = get_step(Projection.RECTILINEAR, 1024, 768,
-                          math.radians(65))
-        f.yaw = math.radians(yaw)
-        f.process_geometry()
-        facets.append(f)
-        srcs.append(E.make_mount_source(f, f_imgs[i], 3, 3))
-    args = Args()
-    args.projection = Projection.SPHERICAL
-    args.width, args.height = 2048, 1024
-    args.hfov = math.radians(360)
-    args.extent = get_extent(args.projection, 2048, 1024, args.hfov)
-    args.step = (args.extent.x1 - args.extent.x0) / 2048
-    args.spline_degree = args.prefilter_degree = 3
-    args.twine = 0
-    args.synopsis = "panorama"
-    args.nchannels = 3
-    args.facets = facets
-    args.solo = -1
-    plan = build_plan(args, facets)
-    window = (0, 1024, 0, 2048)
-    for fi, src in enumerate(srcs):
-        passes, assigned = FP.plan_passes(plan, src, window,
-                                          FP.DEFAULT_CLASSES, fi=fi)
-        n_cov = int((assigned != FP.ZERO_PASS).sum())
-        n_unfused = int((assigned == -1).sum())
-        assert n_unfused <= 6, \
-            f"facet {fi}: {n_unfused}/{n_cov} tiles not classified"
-        # the STEEP last-resort class must be doing its job (the
-        # planner may ship a pass-fitted shrink of it - compare by
-        # ladder provenance, fastpath._fitted_class clones keep it)
-        assert any(wc.label in ("STEEP", "SHEAR_STEEP")
-                   for _n, wc, _b, _t, _m in passes), \
-            f"facet {fi}: STEEP pass missing"
-
-
-def test_cubemap_section_variants_exact():
-    """Forced-face section variants (fastpath 'sec{i}') reproduce the
-    full-IR lookup exactly for rays whose dominant face is i (shared
-    coefficients), and face-boundary tiles classify against the
-    section slice."""
-    import math
-    import jax.numpy as jnp
-    from envutil_tpu.core import geometry as geo
-    from envutil_tpu.models import cubemap as CBM
-    from envutil_tpu.ops import spline as S
-
-    faces = RNG.uniform(0, 1, (6, 64, 64, 3)).astype(np.float32)
-    fct = Facet(facet_no=0, nchannels=3)
-    fct.set_geometry(Projection.CUBEMAP, 64, 6 * 64, math.pi / 2)
-    fct.step = get_step(Projection.CUBEMAP, 64, 6 * 64, math.pi / 2)
-    fct.process_geometry()
-    src = E.make_mount_source  # unused; build cubemap directly
-    csrc = CBM.make_cubemap_source(fct, faces, 3, 3, 16, 16)
-    secs = CBM.section_splines(csrc.spl, csrc.static.metrics)
-    assert set(secs) == {f"sec{i}" for i in range(6)}
-
-    # random rays, grouped by dominant face
-    rng = np.random.default_rng(11)
-    v = rng.normal(size=(3, 4000)).astype(np.float32)
-    v /= np.linalg.norm(v, axis=0, keepdims=True)
-    ray = tuple(jnp.asarray(v))
-    face, fx, fy = geo.ray_to_cubeface(*ray)
-    m = csrc.static.metrics
-    cx, cy = m.get_pickup_coordinate_px(face, fx, fy)
-    full = S.eval_spline(csrc.spl, cx, cy)
-
-    for i in range(6):
-        sel = np.asarray(face) == i
-        if not sel.any():
-            continue
-        fxi, fyi = geo.ray_to_cubeface_fixed(*ray, jnp.int32(i))
-        sxi = (fxi + m.refc_md) * m.model_to_px - 0.5
-        syi = (fyi + m.refc_md) * m.model_to_px - 0.5
-        out = S.eval_spline(secs[f"sec{i}"], sxi, syi)
-        # identical taps and coefficients; the full-IR path's REFLECT
-        # gate adds ~1e-5 of in-range mod-arithmetic rounding
-        np.testing.assert_allclose(np.asarray(out)[sel],
-                                   np.asarray(full)[sel], atol=5e-4)

@@ -13,7 +13,7 @@ import pathlib
 
 import numpy as np
 
-from envutil_tpu.core.rotation import camera_to_facet, rotation_rpy
+from envutil.core.rotation import camera_to_facet, rotation_rpy
 
 DATA = pathlib.Path(__file__).parent / "data" / "imath_rotation_truth.json"
 

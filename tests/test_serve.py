@@ -14,7 +14,7 @@ import time
 import numpy as np
 import pytest
 
-from envutil_tpu.io import imgio
+from envutil.io import imgio
 
 
 @pytest.mark.timeout(300)
@@ -29,9 +29,9 @@ def test_serve_roundtrip(tmp_path):
 
     sock_path = str(tmp_path / "serve.sock")
     env = dict(os.environ, ENVUTIL_SOCKET=sock_path,
-               ENVUTIL_PLATFORM="cpu")
+               JAX_PLATFORMS="cpu")
     server = subprocess.Popen(
-        [sys.executable, "-m", "envutil_tpu.runtime.cli",
+        [sys.executable, "-m", "envutil.runtime.cli",
          "--input", str(env_file), "--twine", "0", "+"],
         env=env, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
     try:
@@ -93,7 +93,7 @@ def test_visor_disconnect_with_held_buffers(tmp_path):
     (render thread wakes via the per-connection stop event)."""
     import threading
 
-    from envutil_tpu.runtime import visor
+    from envutil.runtime import visor
 
     sock_path = str(tmp_path / "visor.sock")
 

@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import scipy.ndimage as ndi
 
-from envutil_tpu.ops import basis as B
-from envutil_tpu.ops import spline as S
+from envutil.ops import basis as B
+from envutil.ops import spline as S
 
 RNG = np.random.default_rng(7)
 
@@ -149,3 +149,44 @@ def test_prefilter_degree_override():
         for k in range(3):
             expect += w[j] * w[k] * img_np[4 + j, 5 + k]
     np.testing.assert_allclose(np.asarray(out)[0, 0], expect, atol=1e-9)
+
+
+@pytest.mark.parametrize("bc", [S.MIRROR, S.PERIODIC])
+@pytest.mark.parametrize("degree", [2, 3, 4, 5, 6, 7])
+def test_prefilter_axis_matches_oracle(degree, bc):
+    """The device prefilter (truncated inverse FIR over a braced
+    signal) against the oracle's exact collocation solve, on float32
+    data in [0, 1]: float32 rounding of the FIR sum is the only
+    residual."""
+    import oracle as O
+    sig = RNG.uniform(0, 1, (57, 3)).astype(np.float32)
+    got = np.asarray(S.prefilter_axis(jnp.asarray(sig), 0, degree, bc))
+    np.testing.assert_allclose(got, O.prefilter_1d(sig, degree, bc),
+                               rtol=0, atol=2e-5)
+
+
+def test_prefilter_convolution_precision_is_highest():
+    """The prefilter's convolution asks for HIGHEST precision, so the
+    GPU cannot run it in TF32."""
+    import jax
+    jaxpr = jax.make_jaxpr(
+        lambda a: S.prefilter_axis(a, 0, 3, S.MIRROR))(
+            jnp.zeros((16, 4), jnp.float32))
+    convs = [e for e in jaxpr.jaxpr.eqns
+             if e.primitive.name == "conv_general_dilated"]
+    assert convs
+    for e in convs:
+        prec = e.params["precision"]
+        assert prec in (jax.lax.Precision.HIGHEST,
+                        (jax.lax.Precision.HIGHEST,) * 2), prec
+
+
+@pytest.mark.parametrize("degree", [2, 3, 7])
+def test_oracle_periodic_fft_solve_matches_dense(degree):
+    """The oracle's Fourier-space solve for periodic signals (used for
+    long sources) gives the dense collocation solve's answer."""
+    import oracle as O
+    sig = RNG.uniform(0, 1, (96, 2))
+    np.testing.assert_allclose(O.prefilter_periodic_fft(sig, degree),
+                               O.prefilter_1d(sig, degree, "periodic"),
+                               rtol=0, atol=1e-12)

@@ -8,9 +8,9 @@ import math
 import numpy as np
 import pytest
 
-from envutil_tpu.io import imgio
-from envutil_tpu.io.tiles import (LineStore, TileStore, exr_line_reader,
-                                  exr_line_writer, render_to_store)
+from envutil.io import imgio
+from envutil.io.tiles import (LineStore, TileStore, exr_line_reader,
+                              exr_line_writer, render_to_store)
 
 
 def ramp(h, w, c=3):
@@ -119,12 +119,12 @@ def test_exr_writer_rejects_short_close(tmp_path):
 
 def test_render_to_store_matches_render_frame(tmp_path):
     """Strip-rendering into a TileStore equals the in-RAM frame."""
-    from envutil_tpu.core.conventions import Projection
-    from envutil_tpu.core.facet import Facet
-    from envutil_tpu.core.metrics import get_extent, get_step
-    from envutil_tpu.models import environment as E
-    from envutil_tpu.runtime.args import Args
-    from envutil_tpu.runtime.render import build_plan, render_frame
+    from envutil.core.conventions import Projection
+    from envutil.core.facet import Facet
+    from envutil.core.metrics import get_extent, get_step
+    from envutil.models import environment as E
+    from envutil.runtime.args import Args
+    from envutil.runtime.render import build_plan, render_frame
 
     w, h = 128, 64
     img = ramp(h, w)
@@ -162,7 +162,7 @@ def test_render_to_store_matches_render_frame(tmp_path):
 
 def test_oiio_option_parsing_and_raw_gate(tmp_path):
     # --oiio dialect: key[@TYPE]=value / bare key (envutil_basic.h:843-905)
-    from envutil_tpu.io.imgio import parse_oiio_options, read_image
+    from envutil.io.imgio import parse_oiio_options, read_image
     assert parse_oiio_options(
         ["raw:ColorSpace=linear", "oiio:UnassociatedAlpha@int=1", "flag"]
     ) == [("raw:ColorSpace", "", "linear"),

@@ -9,14 +9,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from envutil_tpu.core import geometry as geo
-from envutil_tpu.core.conventions import Projection
-from envutil_tpu.core.facet import Facet
-from envutil_tpu.core.metrics import get_extent
-from envutil_tpu.core.rotation import camera_to_facet, rotation_rpy
-from envutil_tpu.models import lens as L
-from envutil_tpu.models import stepper as ST
-from envutil_tpu.runtime.render import _tf3d, generic_r3
+from envutil.core import geometry as geo
+from envutil.core.conventions import Projection
+from envutil.core.facet import Facet
+from envutil.core.metrics import get_extent
+from envutil.core.rotation import camera_to_facet, rotation_rpy
+from envutil.models import lens as L
+from envutil.models import stepper as ST
+from envutil.runtime.render import _tf3d, generic_r3
 
 RNG = np.random.default_rng(11)
 

@@ -10,7 +10,7 @@ import time
 import numpy as np
 import pytest
 
-from envutil_tpu.runtime import visor
+from envutil.runtime import visor
 
 
 def _start_server(render_fn, tmp_path, **kw):

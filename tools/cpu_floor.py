@@ -6,14 +6,10 @@ here).
 The XLA-CPU path vectorizes the same arithmetic the reference's SIMD
 pipeline runs (coordinates + tensor-product spline evaluation +
 synopsis) over the host cores, so its Mpix/s brackets the reference's
-from below on the same machine class. This VM has ONE core; a modern
-8-core AVX2 desktop lands within roughly 8-12x of these numbers
-(cores x wider issue), which is the bracket bench.py/benchmarks.py
-document next to the ~80 Mpix/s modern-desktop estimate used for
-``vs_baseline`` (VERDICT r3 item 5: per-config measured floors, not
-one degree-3 proxy for every config).
+from below on the same machine class. These are CPU rates only: they
+are never reported under a device's name.
 
-Run: ENVUTIL_PLATFORM=cpu python tools/cpu_floor.py [tags...]
+Run: JAX_PLATFORMS=cpu python tools/cpu_floor.py [tags...]
 Writes/updates CPU_FLOORS.json at the repo root (one entry per config
 tag) and prints one JSON line per config.
 """
@@ -26,18 +22,17 @@ import time
 
 
 def main():
-    os.environ.setdefault("ENVUTIL_PLATFORM", "cpu")
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
-    jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
-    from envutil_tpu.core.conventions import Projection
-    from envutil_tpu.core.facet import Facet
-    from envutil_tpu.core.metrics import get_extent, get_step
-    from envutil_tpu.models import environment as E
-    from envutil_tpu.models import cubemap as CBM
-    from envutil_tpu.runtime.args import Args
-    from envutil_tpu.runtime.render import _compiled_window, build_plan
+    from envutil.core.conventions import Projection
+    from envutil.core.facet import Facet
+    from envutil.core.metrics import get_extent, get_step
+    from envutil.models import environment as E
+    from envutil.models import cubemap as CBM
+    from envutil.runtime.args import Args
+    from envutil.runtime.render import _compiled_window, build_plan
 
     rng = np.random.default_rng(7)
 

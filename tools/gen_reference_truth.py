@@ -3,7 +3,7 @@
 De-correlation fixture (VERDICT r4 item 8): the numbers in the fixture
 are computed by THIS script, whose formulas are direct float64
 transcriptions of the reference's C++ sources - cited per case below -
-written without looking at either envutil_tpu or tests/oracle.py. The
+written without looking at either envutil or tests/oracle.py. The
 test tier (tests/test_reference_truth.py) then checks the PRODUCT and
 the ORACLE independently against the frozen literals, so a shared
 misreading of a reference convention in both pipelines (the residual
